@@ -1,5 +1,5 @@
-# Runtime image for gpras-tpu pipelines (host-side; attach TPU via your
-# platform's runtime). The native geometry engine builds at first use, so g++
+# Runtime image for gpras-tpu pipelines (host-side; attach a GPU via your
+# platform's container runtime). The native geometry engine builds at first use, so g++
 # stays in the image.
 FROM python:3.12-slim AS runtime
 

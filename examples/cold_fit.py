@@ -1,20 +1,18 @@
 """Cold exact-GP fit from standard init: `gp.coldfit.fit_exact`.
 
 When no converged target exists to warm-start into (a new basin, a new
-kernel, a new feature set), the measured-fastest protocol is zoom-linesearch
-L-BFGS rather than fixed-lr Adam: at N=49,152 it enters the committed Adam
-convergence band in 23 iterations / ~134 s vs 600 steps / 614 s
-(docs/PERFORMANCE.md "Cold fits: L-BFGS"). The engine is picked by size —
-Hutchinson stochastic-trace while the (N, N) Gram fits HBM, matrix-free
-BBMM CG+SLQ above N=64k run HONESTLY (preconditioned 256-iteration budget
-with bit-identical early exit, solver-validity gate, projection gate-abort,
-and the ``stop_decrease`` noise-plateau stop; measured at N=131,072:
-314.6 s / 14 iterations to the physical NLML bound on one 16 GB chip).
+kernel, a new feature set), zoom-linesearch L-BFGS is the faster cold
+protocol than fixed-lr Adam: at N=49,152 it enters the 600-step Adam
+convergence band in 23 iterations. The engine is picked by size —
+Hutchinson stochastic-trace while the (N, N) Gram fits the device,
+matrix-free BBMM CG+SLQ above, run HONESTLY (preconditioned 256-iteration
+budget with bit-identical early exit, solver-validity gate, projection
+gate-abort, and the ``stop_decrease`` noise-plateau stop).
 
 This example runs the same call at a toy size so it finishes in seconds
 anywhere, then predicts with the fitted hyperparameters.
 
-Run: ``python examples/cold_fit.py`` (CPU or TPU).
+Run: ``python examples/cold_fit.py`` (CPU or GPU).
 """
 
 from __future__ import annotations

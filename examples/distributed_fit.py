@@ -41,7 +41,7 @@ def main(verbose: bool = True, b: int = 16, steps: int = 5):
               f"{float(loss):.3f}")
 
     # hybrid: 4 independent EOF-mode GPs sharded over "dp", each mode's Gram
-    # 2-D tiled within its slice — the multi-slice (DCN x ICI) layout
+    # 2-D tiled within its host group — the multi-host layout
     mesh3 = make_mesh((2, 2, 2), ("dp", "i", "j"))
     p_modes = 4
     y_modes = jnp.asarray(

@@ -5,7 +5,7 @@ Mirrors the library workflow of the reference (gpras/gpr.py + preprocess.py)
 on a synthetic 1-D valley whose flood response is genuinely low-rank, so the
 EOF truncation and the GP fit both have something real to find.
 
-Run: ``python examples/quickstart.py`` (CPU or TPU; small sizes, seconds).
+Run: ``python examples/quickstart.py`` (CPU or GPU; small sizes, seconds).
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ batch size. The reference has no serving layer (its predict path is the
 batch pipeline, gpras/gpr.py:322-342); this is greenfield on top of parity
 artifacts.
 
-Run: ``python examples/serving.py`` (CPU or TPU; small sizes, seconds).
+Run: ``python examples/serving.py`` (CPU or GPU; small sizes, seconds).
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ This example shows the production recipe on a synthetic flood archive:
 3. refine on the full archive with minibatch natural-gradient + Adam steps,
 4. compare held-out accuracy: SVGP-on-everything vs SGPR-on-the-subsample.
 
-Run: ``python examples/streaming_svgp.py`` (CPU or TPU; small sizes, seconds).
+Run: ``python examples/streaming_svgp.py`` (CPU or GPU; small sizes, seconds).
 """
 
 from __future__ import annotations

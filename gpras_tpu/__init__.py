@@ -1,17 +1,18 @@
-"""gpras_tpu — a TPU-native JAX framework for GP surrogate modeling of HEC-RAS floods.
+"""gpras_tpu — a JAX framework for GP surrogate modeling of HEC-RAS floods.
 
 A ground-up rebuild of the capability set of ``fema-ffrd/gpras`` (see SURVEY.md):
 HEC-RAS/HEC-HMS data extraction, EOF/PCA spatial reduction, multi-output exact and
 sparse Gaussian-process regression, posterior prediction with variance propagation,
 a flood-verification metric suite, config-driven pipelines, and cross-validation —
-with the compute core re-designed TPU-first:
+with the compute core designed for an accelerator:
 
-- tiled Pallas Gram-matrix kernels and a blocked Cholesky on the MXU (``ops/``),
+- fused Pallas kernels for the matrix-free Gram products and a blocked
+  in-place Cholesky (``ops/``),
 - custom-VJP log-marginal-likelihood so hyperparameter optimization is fully
   jitted (``gp/``), with vmapped per-EOF-mode latent GPs,
 - a jitted optimizer zoo (Adam with early stop, L-BFGS, staged schedules,
   vmapped multi-start and differential evolution) (``fit/``),
-- 2-D ICI-sharded Gram + distributed blocked Cholesky via ``shard_map`` for
+- 2-D sharded Gram + distributed blocked Cholesky via ``shard_map`` for
   N>=100k training points (``parallel/``).
 
 Host-side I/O (HEC-RAS HDF5, flow/plan text files, parquet DBs) stays on CPU in
@@ -21,17 +22,20 @@ Host-side I/O (HEC-RAS HDF5, flow/plan text files, parquet DBs) stays on CPU in
 __version__ = "0.1.0"
 
 
-def _set_numerics_policy() -> None:
-    """Default every unannotated matmul to MXU ``high`` precision (bf16_3x,
-    f32-equivalent accumulation).
+#: package matmul precision: full float32 products. On an NVIDIA GPU,
+#: "high" lowers float32 dots to TF32 (10-bit mantissa), which is too coarse
+#: for the kernel matrices' squared distances and the blocked Cholesky's
+#: Schur updates; "highest" keeps every product f32-accurate.
+MATMUL_PRECISION = "highest"
 
-    On TPU the hardware default is ONE bf16 pass (2^-8 epsilon) — measured to
-    poison Schur complements, SGPR ELBO terms, and posterior means at the
-    1e-2 relative level (docs/PERFORMANCE.md, "bf16-default poisoning").
-    Hot paths that have been profiled carry explicit ``precision=`` already;
-    this policy protects everything else. A user who wants raw bf16 speed can
-    re-set ``jax_default_matmul_precision`` after importing gpras_tpu; a
-    value already set before import is respected. No-op off-TPU.
+
+def _set_numerics_policy() -> None:
+    """Default every matmul to ``MATMUL_PRECISION``.
+
+    The package's numeric sites pass no ``precision=`` of their own, so this
+    one setting governs them all. A value already set before import is
+    respected, and a user may re-set ``jax_default_matmul_precision`` after
+    importing gpras_tpu.
     """
     import logging
 
@@ -39,12 +43,13 @@ def _set_numerics_policy() -> None:
 
     try:
         if jax.config.jax_default_matmul_precision is None:
-            jax.config.update("jax_default_matmul_precision", "high")
+            jax.config.update("jax_default_matmul_precision",
+                              MATMUL_PRECISION)
             # process-global change: make it discoverable for co-resident
             # JAX code that didn't ask for it
             logging.getLogger(__name__).debug(
-                "gpras_tpu set jax_default_matmul_precision='high' "
-                "(TPU default is 1-pass bf16; see docs/PERFORMANCE.md)")
+                "gpras_tpu set jax_default_matmul_precision=%r",
+                MATMUL_PRECISION)
     except Exception as exc:  # noqa: BLE001
         # never block `import gpras_tpu` over a numerics preference (a jax
         # version may lack the knob or reject the value) — but leave a trail

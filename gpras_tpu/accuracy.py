@@ -1,4 +1,4 @@
-"""Accuracy north star: depth-RMSE of the f32 TPU pipeline vs the f64 dense
+"""Accuracy north star: depth-RMSE of the f32 device pipeline vs the f64 dense
 exact posterior (BASELINE.md "depth-RMSE parity" clause).
 
 A deterministic synthetic flood-upskilling problem at pipeline scale (low-rank
@@ -8,7 +8,7 @@ gpras/preprocess.py:327-427) is pushed through the full surrogate chain
 twice:
 
 - **f32 path**: EOF preprocessors + SGPR GP fit/predict in float32 on the
-  default platform (the TPU in production) — exactly what a pipeline user
+  default device (the GPU in production) — exactly what a pipeline user
   runs (reference chain: gpras/gpr.py:299-342 + preprocess.py:1009-1094).
 - **f64 gold path**: the same data through a float64 dense exact GP on CPU —
   the in-repo ground truth for GPflow's float64 math (gpras/gpr.py:18).
@@ -144,7 +144,7 @@ def summarize(f32: dict[str, np.ndarray], f64: dict[str, np.ndarray]
     r32 = rmse(f32["field"], truth)
     r64 = rmse(f64["field"], truth)
     return {
-        "depth_rmse_f32_tpu": round(r32, 6),
+        "depth_rmse_f32": round(r32, 6),
         "depth_rmse_f64_gold": round(r64, 6),
         "depth_rmse_vs_f64": round(rmse(f32["field"], f64["field"]), 6),
         "depth_rmse_ratio_f32_over_f64": round(r32 / max(r64, 1e-300), 4),
@@ -154,13 +154,13 @@ def summarize(f32: dict[str, np.ndarray], f64: dict[str, np.ndarray]
 
 
 # ---------------------------------------------------------------------------
-# exact-engine north star (VERDICT r2 weak #8): the 49k headline numbers come
+# exact-engine north star: the 49k headline numbers come
 # from the Hutchinson super-panel engine, which the pipeline-scale SGPR
 # comparison above never exercises. This problem runs the PRODUCTION exact
 # path (GPRAS model_type="exact", auto engine ladder -> hutchinson at 32k,
 # hierarchical warm start) in f32 on the default platform, then scores its
 # posterior against a dense float64 gold posterior computed on CPU with the
-# SAME fitted hyperparameters — isolating the numerics of the f32 TPU
+# SAME fitted hyperparameters — isolating the numerics of the f32
 # factorization/solve chain from optimizer variance.
 # ---------------------------------------------------------------------------
 
@@ -279,7 +279,7 @@ def summarize_exact(f32: dict[str, np.ndarray], f64: dict[str, np.ndarray],
     r32, r64 = rmse(f32["mean"], truth), rmse(f64["mean"], truth)
     return {
         "exact_n": int(cfg["n_train"]),
-        "exact_rmse_f32_tpu": round(r32, 6),
+        "exact_rmse_f32": round(r32, 6),
         "exact_rmse_f64_gold": round(r64, 6),
         "exact_rmse_vs_f64": round(rmse(f32["mean"], f64["mean"]), 6),
         "exact_rmse_ratio_f32_over_f64": round(r32 / max(r64, 1e-300), 4),

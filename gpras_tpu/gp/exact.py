@@ -1,8 +1,8 @@
 """Exact Gaussian-process regression with a custom-VJP log-marginal-likelihood.
 
 The reference has no exact GP (it always uses GPflow's sparse SGPR,
-gpras/gpr.py:299); BASELINE.json's north star adds one as a first-class TPU target:
-"training runs a blocked Cholesky on the MXU ... with a custom-VJP log-marginal-
+gpras/gpr.py:299); BASELINE.json's north star adds one as a first-class target:
+"training runs a blocked Cholesky ... with a custom-VJP log-marginal-
 likelihood so hyperparameter optimization is fully jitted".
 
 Design:
@@ -17,7 +17,7 @@ Design:
   ``jax.checkpoint`` at large N to trade recompute for O(N^2) residual memory.
 
 All functions are pure and jittable; dtype follows the inputs (float64 works on
-CPU for validation; float32 is the TPU default).
+CPU for validation; float32 is the device default).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Memory-lean exact-GP NLML for very large N on a single chip.
+"""Memory-lean exact-GP NLML for very large N on a single device.
 
 The standard custom VJP (gpras_tpu.gp.exact) materializes K^{-1} and the full
 cotangent K_bar in the backward pass — three extra O(N^2) buffers on top of the
-factor, which blows past one chip's HBM around N ~ 24k (f32). This variant keeps
+factor, four (N, N) buffers in all. This variant keeps
 the same mathematics
 
     dNLML/dK = 0.5 (K^{-1} - alpha alpha^T)
@@ -11,7 +11,8 @@ but reconstructs K^{-1} in **column panels** inside a ``lax.fori_loop``: each
 iteration solves (L L^T) Z = E_panel for one (N, R) identity block, forms the
 (N, R) slice of K_bar, and contracts it with dK/dtheta through a vjp of the
 corresponding Gram **tile** k(x, x_panel). Peak backward memory is the saved
-factor plus O(N * R) temporaries, so N = 50k fits in 16 GB HBM. FLOPs match the
+factor plus O(N * R) temporaries (an (N, N) f32 factor at N = 50k is 10 GB).
+FLOPs match the
 dense backward (the identity solves are the same O(N^3)).
 
 This is the single-device twin of ``gpras_tpu.parallel.pexact``'s distributed
@@ -36,7 +37,7 @@ Array = jax.Array
 def make_lean_nlml(kernel: str, col_panel: int = 2048,
                    blocked: int | None = None, engine: str | None = None,
                    chol_w: int = 1024, chol_strip: int = 16384,
-                   chol_precision: str = "high"):
+                   chol_precision: str | None = None):
     """Returns ``nlml(params, x, y)`` (y strictly (N,)) with the panel-scan
     backward; differentiable w.r.t. params and y.
 

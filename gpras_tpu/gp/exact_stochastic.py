@@ -24,10 +24,12 @@ unbiased noise; a fixed key gives deterministic (biased-like SAA) behavior.
 from __future__ import annotations
 
 import math
+import os
 
 import jax
 import jax.numpy as jnp
 
+from gpras_tpu.gp.exact_cg import _cotangent_grads
 from gpras_tpu.gp.priors import log_prior
 from gpras_tpu.ops import kernels as K
 from gpras_tpu.ops import linalg
@@ -38,30 +40,29 @@ Array = jax.Array
 def make_hutchinson_nlml(kernel: str, probes: int = 16, col_panel: int = 4096,
                          chol: str = "xla", chol_w: int = 2048,
                          chol_strip: int = 16384,
-                         chol_precision: str = "high"):
+                         chol_precision: str | None = None):
     """Returns ``nlml(params, x, y, key)`` with the stochastic backward.
 
     ``chol`` picks the factorization/solve engine:
     - ``"xla"``: jnp.linalg.cholesky — fastest compile at small/moderate N,
-      but its lowering (and HBM footprint: separate K and L buffers) grows
-      with N; impractical beyond ~16k on one chip in this stack.
+      but it keeps separate K and L buffers and its compile time grows
+      with N.
     - ``"super"``: ops.block_cholesky.super_cholesky (shrinking static
-      trailing updates, in-place, ~1.8x faster than the XLA factorization at
-      N=16k and flat compile cost) + flat-compile panel solves. The N>=32k
-      configuration. ``chol_precision`` sets its MXU matmul precision —
-      "high" (bf16_3x, f32-equivalent, the stable default) / "highest" /
-      "default" (1-pass bf16: fast but diverges once the fitted noise gets
-      small, see super_cholesky's docstring). The forward Gram also switches
-      to the fused Pallas builder so K occupies a single (N, N) buffer with
-      the noise diagonal added in-kernel.
+      trailing updates, in place, flat compile cost) + flat-compile panel
+      solves. The large-N configuration. ``chol_precision`` sets the
+      precision of its matmuls; the default (None) follows the package
+      policy (gpras_tpu.__init__), which keeps f32-equivalent products.
     - ``"blocked"``: ops.block_cholesky.blocked_cholesky (fori_loop masked
       full-width updates) — kept for tiny-HLO debugging.
+
+    The backward is exact_cg._cotangent_grads: the fused Pallas
+    contraction where ops/fused.use_fused holds, the Gram-vjp panel loop
+    otherwise.
     """
 
     if chol == "super":
         from gpras_tpu.ops.block_cholesky import (blocked_cho_solve, fit_block,
                                                   super_cholesky)
-        from gpras_tpu.ops.pallas_gram import gram as fused_gram
         # zero_upper=False: the tril is a second (N, N) buffer; the panel
         # solves and diag logdet below never read above the diagonal.
         # fit_block: the panel width must divide N (arbitrary event counts);
@@ -71,12 +72,11 @@ def make_hutchinson_nlml(kernel: str, probes: int = 16, col_panel: int = 4096,
             chol_precision, zero_upper=False)
         solve_fn = lambda l, r: blocked_cho_solve(l, r, 512)
     elif chol == "blocked":
-        from gpras_tpu.ops.block_cholesky import blocked_cho_solve, blocked_cholesky
-        fused_gram = None
-        chol_fn = lambda k: blocked_cholesky(k, chol_w)
+        from gpras_tpu.ops.block_cholesky import (blocked_cho_solve,
+                                                  blocked_cholesky, fit_block)
+        chol_fn = lambda k: blocked_cholesky(k, fit_block(k.shape[0], chol_w))
         solve_fn = lambda l, r: blocked_cho_solve(l, r, 512)
     else:
-        fused_gram = None
         chol_fn = jnp.linalg.cholesky
         solve_fn = linalg.cho_solve
 
@@ -84,11 +84,8 @@ def make_hutchinson_nlml(kernel: str, probes: int = 16, col_panel: int = 4096,
         n = x.shape[0]
         noise = jnp.exp(params["log_noise_variance"])
         jitter = linalg.default_jitter(x.dtype) * jnp.exp(params["log_variance"])
-        if fused_gram is not None:
-            k = fused_gram(kernel, params, x, noise=noise + jitter)
-        else:
-            k = K.gram(kernel, params, x)
-            k = k + (noise + jitter) * jnp.eye(n, dtype=k.dtype)
+        k = K.gram(kernel, params, x)
+        k = k + (noise + jitter) * jnp.eye(n, dtype=k.dtype)
         l = chol_fn(k)
         alpha = solve_fn(l, y[:, None])[:, 0]
         quad = 0.5 * jnp.vdot(y, alpha)
@@ -109,55 +106,10 @@ def make_hutchinson_nlml(kernel: str, probes: int = 16, col_panel: int = 4096,
         # linesearch under jax_enable_x64) can deliver a promoted cotangent;
         # the engine computes in the data dtype
         g = jnp.asarray(g, x.dtype)
-        n = x.shape[0]
-        from gpras_tpu.ops.block_cholesky import fit_block
-
-        r = fit_block(n, col_panel)
-        n_panels = n // r
-        z = jax.random.rademacher(key, (n, probes), dtype=x.dtype)
+        z = jax.random.rademacher(key, (x.shape[0], probes), dtype=x.dtype)
         w = solve_fn(l, z)  # (N, m): K^{-1} Z
-        inv_m = 1.0 / probes
-        if n >= 2048 and kernel in K.STATIONARY_KERNELS and \
-                x.dtype == jnp.float32 and \
-                jax.devices()[0].platform == "tpu":
-            # fused Pallas cotangent contraction (see exact_cg.bwd): the
-            # panel loop's Gram tiles + autodiff residuals never hit HBM
-            from gpras_tpu.ops.pallas_gram import pallas_kgrad
-
-            pg = pallas_kgrad(kernel, params, x, w, z, alpha, g=g,
-                              inv_m=inv_m)
-            diag_sum = 0.5 * g * (inv_m * jnp.sum(w * z)
-                                  - jnp.sum(alpha * alpha))
-            grads = jax.tree.map(jnp.zeros_like, params)
-            grads["log_variance"] = pg["log_variance"].astype(x.dtype)
-            grads["log_lengthscales"] = \
-                pg["log_lengthscales"].astype(x.dtype)
-            grads["log_noise_variance"] = grads["log_noise_variance"] + \
-                diag_sum * jnp.exp(params["log_noise_variance"])
-            grads["log_variance"] = grads["log_variance"] + \
-                diag_sum * linalg.default_jitter(x.dtype) * \
-                jnp.exp(params["log_variance"])
-            return grads, jnp.zeros_like(x), g * alpha, None
-
-        def panel_step(j, carry):
-            grads_acc, diag_acc = carry
-            cols = j * r + jnp.arange(r)
-            # rank-(m+1) cotangent tile: 0.5 g [(1/m) W Z_p^T - alpha alpha_p^T]
-            kbar = 0.5 * g * (inv_m * (w @ z[cols].T)
-                              - alpha[:, None] * alpha[cols][None, :])
-            diag_acc = diag_acc + jnp.sum(kbar[cols, jnp.arange(r)])
-            _, pullback = jax.vjp(
-                lambda pp: K.gram(kernel, pp, x, x[cols]), params)
-            (grads_t,) = pullback(kbar)
-            return jax.tree.map(jnp.add, grads_acc, grads_t), diag_acc
-
-        zero = jax.tree.map(jnp.zeros_like, params)
-        grads, diag_sum = jax.lax.fori_loop(
-            0, n_panels, panel_step, (zero, jnp.zeros((), x.dtype)))
-        grads["log_noise_variance"] = grads["log_noise_variance"] + \
-            diag_sum * jnp.exp(params["log_noise_variance"])
-        grads["log_variance"] = grads["log_variance"] + \
-            diag_sum * linalg.default_jitter(x.dtype) * jnp.exp(params["log_variance"])
+        grads = _cotangent_grads(kernel, params, x, alpha, w, z, g,
+                                 1.0 / probes, col_panel)
         return grads, jnp.zeros_like(x), g * alpha, None
 
     nlml.defvjp(fwd, bwd)
@@ -175,20 +127,45 @@ def make_hutchinson_training_loss(kernel: str, probes: int = 16,
 
 
 def default_chol_config(n: int) -> dict:
-    """The measured factorization knobs for problem size ``n`` — the SINGLE
-    source of truth shared by GPRAS._loss_fn, gp.coldfit, and bench.py.
+    """The factorization knobs for problem size ``n`` — the SINGLE source
+    of truth shared by GPRAS._loss_fn, gp.coldfit, and bench.py.
 
-    Values from the round-3 TPU sweeps (bench.py sweep log in _robust_loss's
-    docstring / docs/PERFORMANCE.md): the in-place super-panel engine above
-    16k (XLA's cholesky lowering takes unbounded compile time there and
-    needs separate K+L buffers), wide (w=2048, strip=16384) panels up to
-    32k, narrow (w=512, strip=2048) panels above it (at 49k the factor
-    alone is ~9.7 of 16 GB HBM, and narrow panels shed panel-solve FLOPs
-    faster than the serial inner-diagonal cost grows: 8.68 s vs 9.34 s for
-    the 10-step fit).
+    The in-place super-panel engine above 16k (XLA's cholesky keeps
+    separate K and L buffers and its compile time grows with N); wide
+    (w=2048, strip=16384) panels up to 32k, narrow (w=512, strip=2048)
+    panels above, where the strip temporaries are O(N * strip) next to an
+    (N, N) factor that already fills much of the device.
     """
     return {
         "chol": "super" if n > 16384 else "xla",
         "chol_strip": 16384 if n <= 32768 else 2048,
         "chol_w": 2048 if n < 32768 else 512,
     }
+
+
+#: device bytes a dense exact engine needs per Gram entry. The compiled
+#: Hutchinson value-and-gradient program holds two (N, N) f32 buffers (the
+#: Gram and its factor: temporaries of 2.000 x 4 N^2 bytes at N=49,152 on an
+#: H100, for narrow and wide panels alike), i.e. 8 bytes; one more byte
+#: leaves room for the strips, the probes and the data
+DENSE_BYTES_PER_ENTRY = 9
+
+
+def device_bytes_limit() -> int:
+    """Bytes the default device grants this process:
+    ``memory_stats()["bytes_limit"]`` on an accelerator; the host's physical
+    memory on the CPU, which reports no limit of its own."""
+    stats = jax.devices()[0].memory_stats() or {}
+    if "bytes_limit" in stats:
+        return int(stats["bytes_limit"])
+    return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def dense_n_max(bytes_limit: int | None = None) -> int:
+    """Largest N the dense (factorizing) exact engines fit on one device:
+    ``DENSE_BYTES_PER_ENTRY * N^2 <= bytes_limit``. Above it the exact
+    backend goes matrix-free (gp/exact_cg.py), which stores no (N, N)
+    buffer at all."""
+    if bytes_limit is None:
+        bytes_limit = device_bytes_limit()
+    return math.isqrt(bytes_limit // DENSE_BYTES_PER_ENTRY)

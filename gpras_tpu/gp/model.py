@@ -4,12 +4,12 @@ Reference surface (gpras/gpr.py:217-384): ``GPRAS(kernel)`` with
 ``fit(x, y, n_inducing, inducing_initializer, optimization_method, **opt_kwargs)``,
 ``predict(x) -> (means, variances)``, ``to_file``/``from_file``.
 
-TPU-first redesign:
+Redesign for an accelerator:
 - The reference trains **one GPflow SGPR per EOF mode in a serial Python loop**
   (gpras/gpr.py:272-274) and predicts mode-by-mode (gpras/gpr.py:336-339). Here the
   per-mode parameters are a **batched pytree** (leading axis = mode) and fit/predict
   are ``jax.vmap`` of a single jitted program — all modes train and predict
-  simultaneously on one chip.
+  simultaneously on one device.
 - ``model_type="exact"`` adds a dense exact-GP backend (no inducing points) with a
   custom-VJP NLML — the reference has no exact-GP path; this is BASELINE.json's
   headline config.
@@ -36,6 +36,7 @@ import numpy as np
 from gpras_tpu.fit import optimizers as fitters
 from gpras_tpu.gp import exact as exact_gp
 from gpras_tpu.gp import sgpr, svgp, warmstart
+from gpras_tpu.gp.exact_stochastic import dense_n_max
 from gpras_tpu.ops import kernels as K
 from gpras_tpu.ops import kmeans as km
 from gpras_tpu.ops import linalg
@@ -169,12 +170,11 @@ class GPRAS:
 
         ``warm_start_subsample`` (exact backend) first runs the SAME
         optimization on a uniform subsample of that size, then starts the
-        full-N fit from the subsample optimum. Measured at N=49k on a v5e:
-        the warm-started fit opens BELOW the loss 600 cold full-N Adam steps
-        reach, and converges (reference early-stop semantics) in ~250 steps
-        where the cold fit had not converged by 600 — subsampled
-        hyperparameter surfaces are near-identical at a fraction of the
-        per-step cost (docs/PERFORMANCE.md).
+        full-N fit from the subsample optimum. At N=49k the warm-started fit
+        opens BELOW the loss 600 cold full-N Adam steps reach, and converges
+        (reference early-stop semantics) in ~250 steps where the cold fit
+        had not converged by 600 — subsampled hyperparameter surfaces are
+        near-identical at a fraction of the per-step cost.
 
         The float32 transfer is routed through the warm-start protocol
         (gp/warmstart.py): the rung's kernel variance is clamped to
@@ -312,7 +312,7 @@ class GPRAS:
             # float32 production guards (overridable): GPyTorch-style noise
             # floor + AMP-style non-finite step rejection — without them a
             # large-N exact fit NaNs once Adam overshoots the conditioning
-            # the factorization can represent (docs/PERFORMANCE.md)
+            # the factorization can represent
             import math
 
             opt_kwargs.setdefault("lower_bounds",
@@ -336,7 +336,10 @@ class GPRAS:
         else:
             fitted, info = jax.vmap(fit_one, in_axes=(0, 1))(batched0, self.y)
         self.params = fitted
-        self.fit_info = info
+        self.fit_info = dict(info)
+        if self.model_type == "exact":
+            self.fit_info["engine"] = self._single_device_engine(
+                self.x.shape[0])
         self._cache = None
         if "losses" in info and "evolution" not in optimization_method:
             # DE's info["losses"] is the final population's energies, not a
@@ -352,9 +355,9 @@ class GPRAS:
     #: super-panel engine (ops/block_cholesky.py): the XLA cholesky lowering's
     #: compile time and its separate K+L buffers are both impractical there
     SUPER_THRESHOLD = 16384
-    #: above this N even one (N, N) buffer does not fit 16 GB HBM; the loss
-    #: goes matrix-free (gp/exact_cg.py, batched CG + SLQ)
-    CG_THRESHOLD = 55000
+    # above exact_stochastic.dense_n_max() (derived from the device's
+    # memory) even one (N, N) buffer does not fit; the loss goes
+    # matrix-free (gp/exact_cg.py, batched CG + SLQ)
 
     @staticmethod
     def _resolve_mesh(mesh: Any):
@@ -395,13 +398,13 @@ class GPRAS:
     def _fit_distributed(self, mesh: Any, batched0: dict[str, Array],
                          optimization_method: str,
                          opt_kwargs: dict[str, Any]) -> None:
-        """One-call distributed exact-GP fit over an ICI mesh.
+        """One-call distributed exact-GP fit over a device mesh.
 
         Engine ladder (per-mesh scaling of the single-chip one): dense
         exact-backward below SUPER_THRESHOLD, Hutchinson stochastic-trace
         backward above it, matrix-free distributed CG once even the
         mesh-sharded (N, N) Gram exceeds the aggregate dense ceiling
-        (CG_THRESHOLD * sqrt(n_devices): per-device tile memory is
+        (dense_n_max() * sqrt(n_devices): per-device tile memory is
         N^2/n_devices). Modes run sequentially (lax.map) — each mode's
         factorization already spans every device. The SAA fixed probe key
         makes stochastic losses deterministic, so the whole optimizer zoo
@@ -422,7 +425,7 @@ class GPRAS:
                     f"N={n} must divide by mesh axis {ax!r}={size}")
         engine = self.exact_engine
         if engine == "auto":
-            if n > int(self.CG_THRESHOLD * math.sqrt(n_dev)):
+            if n > int(dense_n_max() * math.sqrt(n_dev)):
                 engine = "cg"
             elif n > self.SUPER_THRESHOLD:
                 engine = "hutchinson"
@@ -494,6 +497,24 @@ class GPRAS:
         self.fit_info["dist_engine"] = engine
         self.fit_info["dist_mesh_shape"] = tuple(mesh.shape.values())
 
+    def _single_device_engine(self, n: int) -> str:
+        """The exact engine ``exact_engine`` resolves to at size ``n``.
+
+        ``auto``: dense (exact grads) -> lean (exact grads, panel-scan
+        backward) -> hutchinson (stochastic trace: the lean backward's
+        O(N^3) inverse reconstruction costs ~10x the forward above ~16k) ->
+        matrix-free cg once one (N, N) buffer no longer fits the device
+        (exact_stochastic.dense_n_max)."""
+        if self.exact_engine != "auto":
+            return self.exact_engine
+        if n > dense_n_max():
+            return "cg"
+        if n > self.SUPER_THRESHOLD:
+            return "hutchinson"
+        if n > self.LEAN_THRESHOLD:
+            return "lean"
+        return "dense"
+
     def _loss_fn(self, params: dict[str, Array], y_i: Array) -> Array:
         if self.model_type == "sgpr":
             return sgpr.training_loss(self.kernel_str, params, self.x, y_i)
@@ -503,21 +524,7 @@ class GPRAS:
             return svgp.training_loss(self.kernel_str, params, self.x, y_i,
                                       self.x.shape[0])
         n = self.x.shape[0]
-        engine = self.exact_engine
-        if engine == "auto":
-            # dense (exact grads) -> lean (exact grads, panel-scan backward)
-            # -> hutchinson (stochastic trace: the lean backward's O(N^3)
-            # inverse reconstruction costs ~10x the forward above ~16k;
-            # measured 0.46 s/step at 32k vs minutes for lean) -> matrix-free
-            # cg once one (N, N) buffer no longer fits HBM.
-            if n > self.CG_THRESHOLD:
-                engine = "cg"
-            elif n > self.SUPER_THRESHOLD:
-                engine = "hutchinson"
-            elif n > self.LEAN_THRESHOLD:
-                engine = "lean"
-            else:
-                engine = "dense"
+        engine = self._single_device_engine(n)
         if engine == "cg":
             from gpras_tpu.gp.exact_cg import make_cg_training_loss
 

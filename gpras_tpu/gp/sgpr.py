@@ -14,7 +14,7 @@ as pure jittable JAX. With kernel k, inducing inputs Z (M, D), training data
            - sum(kdiag(X)) / (2 s2) + trace(A A^T) / 2
 
 The last two terms are the Titsias trace correction. Everything is one Cholesky of
-an (M, M) matrix plus MXU matmuls — ideal TPU shape (M = inducing count is 10-300
+an (M, M) matrix plus dense matmuls — an ideal accelerator shape (M = inducing count is 10-300
 in the reference's sweeps, cross_validation.py:105-110). Gradients flow by
 ordinary AD (cost is dominated by the (M, N) matmuls; no custom VJP needed at
 these sizes).

@@ -6,7 +6,7 @@ which needs the full (M, N) cross-Gram inside every optimizer step — N is
 bounded by memory and every step costs O(N M^2). The uncollapsed bound of
 Hensman et al. (2013, "Gaussian Processes for Big Data") makes the posterior
 over inducing outputs an explicit variational distribution q(u), so the ELBO
-decomposes over data points. That unlocks the TPU-idiomatic training loop:
+decomposes over data points. That unlocks the accelerator-idiomatic training loop:
 fixed-shape minibatch steps under one jit (``make_minibatch_fit`` compiles a
 single program that ``lax.scan``s over shuffled on-device batches — no
 retraces, no host round trips), unbounded N at O(M^2) memory, and O(M^2)-state
@@ -268,7 +268,7 @@ def make_minibatch_fit(kernel: str, batch_size: int, epochs: int,
     every batch is a uniform random subset — the ELBO's ``n_total / B``
     scaling stays unbiased) and an inner ``lax.scan`` over the epoch's
     batches. Static shapes throughout: no retraces, no host round trips —
-    the whole fit is one dispatch on TPU.
+    the whole fit is one dispatch.
 
     ``natgrad``: when set (e.g. 0.5), each batch step interleaves a
     :func:`natgrad_step` on the variational leaves (q_mu, q_raw) with an
@@ -328,7 +328,7 @@ def make_stream_fit(kernel: str, learning_rate: float = 0.01,
     """Host-streamed trainer for archives that live OFF the device.
 
     :func:`make_minibatch_fit` assumes x/y are device-resident (the fastest
-    path when they fit HBM). Production flood archives live in parquet on
+    path when they fit device memory). Production flood archives live in parquet on
     the host, so the realistic bound includes host->device ingestion. This
     returns ``(init, run_chunk)``:
 

@@ -1,13 +1,11 @@
 """Warm-start transfer protocol for large-N exact-GP fits.
 
-Productizes the headline bench's measured warm-start robustness (VERDICT r4
-item 4): a converged fit on a subsample rung transfers its hyperparameters
+Productizes the headline bench's warm-start robustness: a converged fit on a subsample rung transfers its hyperparameters
 to the full-N problem only after the **conditioning-envelope clamp**, and the
 full-N fit **certifies** the transferred parameters with one forward NLML
 evaluation before polishing.
 
-Why the clamp exists (measured on the v5e at N=49,152, round 4 — see
-docs/PERFORMANCE.md "Warm-start transfer clamp"): the f32 factorization of
+Why the clamp exists (observed at N=49,152): the f32 factorization of
 the full-N Gram is feasible only while kappa ~ n * var / noise stays inside
 the f32 envelope, and a subsample rung over-inflates the kernel variance
 along the flat var-vs-nuisance-lengthscale NLML ridge — the 4,096-point rung

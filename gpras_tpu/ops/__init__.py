@@ -1,1 +1,1 @@
-"""TPU compute ops: kernel Gram builders, Cholesky/solves, k-means, splines."""
+"""Device compute ops: kernel Gram builders, Cholesky/solves, k-means, splines."""

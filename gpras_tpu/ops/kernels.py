@@ -16,14 +16,14 @@ reference relies on:
 
 where ``r2 = sum_d ((x_d - x'_d) / l_d)^2`` and ``r = sqrt(r2)`` (ARD lengthscales).
 
-Design notes (TPU-first):
+Design notes:
 - Everything is traceable/jittable; the scaled squared distance is computed as a
-  single MXU matmul plus rank-1 row/column norms (no (N, N, D) intermediates).
+  single matmul plus rank-1 row/column norms (no (N, N, D) intermediates).
 - Parameters are carried **unconstrained** (log-space) in a flat dict so optimizers
   work on a smooth domain; ``constrain``/``unconstrain`` convert.
-- The hot Gram build for large N has a tiled Pallas implementation in
-  ``gpras_tpu.ops.pallas_gram``; this module is the reference implementation and the
-  default for moderate sizes (XLA already fuses the elementwise tail into the matmul).
+- The matrix-free engines' Gram products have fused Pallas kernels in
+  ``gpras_tpu.ops.fused``; this module is the reference implementation, and the Gram
+  build itself stays plain XLA (it fuses the elementwise tail into one pass).
 """
 
 from __future__ import annotations
@@ -126,7 +126,7 @@ def unconstrain(params: dict[str, Array]) -> dict[str, Array]:
 def scaled_sqdist(x1: Array, x2: Array, lengthscales: Array) -> Array:
     """Pairwise squared distance of lengthscale-scaled points, shape (N1, N2).
 
-    Computed as ||a||^2 + ||b||^2 - 2 a b^T so the O(N^2 D) work is one MXU matmul.
+    Computed as ||a||^2 + ||b||^2 - 2 a b^T so the O(N^2 D) work is one matmul.
     Clamped at zero (the matmul form can go slightly negative in floating point).
     """
     a = x1 / lengthscales

@@ -7,7 +7,7 @@ min and max (gpras/gpr.py:316-320 — note this is a stacked per-dimension linsp
 i.e. M points along the "diagonal" of the bounding box, not a mesh; we reproduce
 that exact behavior).
 
-TPU-first: the assignment step is one MXU matmul (pairwise distances in matmul
+On device: the assignment step is one matmul (pairwise distances in matmul
 form) and the update step is a segment-sum; the whole Lloyd loop is a
 ``lax.while_loop`` in one jit.
 """

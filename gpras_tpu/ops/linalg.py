@@ -2,8 +2,9 @@
 
 Replaces the TF ops the reference delegated to via GPflow (reference gpras/gpr.py:299,
 SGPR internals): Cholesky factorization, triangular solves, and log-determinants.
-On TPU these lower to XLA's blocked MXU implementations; a Pallas blocked
-right-looking Cholesky for very large N lives in ``gpras_tpu.ops.block_cholesky``.
+These lower to XLA's (cuSOLVER/cuBLAS on a GPU) implementations; an in-place
+blocked right-looking Cholesky for very large N lives in
+``gpras_tpu.ops.block_cholesky``.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ import jax.numpy as jnp
 Array = jax.Array
 
 #: Default diagonal jitter, scaled to the working dtype. The reference runs float64
-#: with GPflow's 1e-6 default jitter (gpflow default_jitter); in float32 on TPU we
-#: use a larger floor and adaptive escalation.
+#: with GPflow's 1e-6 default jitter (gpflow default_jitter); in float32 we use a
+#: larger floor and adaptive escalation.
 DEFAULT_JITTER_F32 = 1e-6
 DEFAULT_JITTER_F64 = 1e-9
 
@@ -117,20 +118,19 @@ def _safe_cholesky_bwd(max_tries, jitter, symmetrize, res, lbar):
 _safe_cholesky.defvjp(_safe_cholesky_fwd, _safe_cholesky_bwd)
 
 
-def tri_inverse(l: Array, *, precision: str = "high",
+def tri_inverse(l: Array, *, precision: str | None = None,
                 newton_steps: int = 2) -> Array:
     """Explicit lower-triangular inverse, Newton-refined at ``precision``.
 
-    Used where applying an explicit inverse by MXU matmul is the SPEED choice
-    over a triangular solve (TPU TRSM runs ~23 TF/s vs 48 TF/s for bf16_3x
-    matmul — ``super_cholesky``'s panel solve multiplies a (t, w) block by
-    the same (w, w) inverse). Numerics: XLA's ``triangular_solve`` itself is
+    Used where one (w, w) inverse is applied by matmul to a tall block
+    (``super_cholesky``'s panel solve multiplies a (t, w) block by it)
+    instead of a triangular solve with many right-hand sides. Numerics: XLA's ``triangular_solve`` itself is
     backward-stable (measured ~3e-7 f32 residual — prefer it when speed is
     equal); inverse-application is not (measured ~1e-4 residual at
     cond ~ 1e5), so the Newton refinement ``X <- X + X(I - L X)`` at
     controlled precision keeps the inverse operator f32-accurate, and the
     factorization quality it feeds was validated against XLA's cholesky to
-    the f32 conditioning wall (docs/PERFORMANCE.md).
+    the f32 conditioning wall.
     """
     n = l.shape[-1]
     eye = jnp.eye(n, dtype=l.dtype)

@@ -1,23 +1,23 @@
 """Hybrid data x model parallel training over a 3-axis ("dp", "i", "j") mesh.
 
-Multi-slice scaling design (greenfield — the reference has no distributed
+Multi-host scaling design (greenfield — the reference has no distributed
 runtime at all, SURVEY.md section 2.2): the surrogate is a stack of
 INDEPENDENT per-EOF-mode latent GPs over a shared input matrix
 (/root/reference/gpras/gpr.py:289-330 fits one GPflow model per mode), so
 the mode axis is the framework's weak-communication axis — no collective
-ever crosses it during a fit step. That is exactly the axis to place on DCN
-when a job spans multiple TPU slices ("How to Scale Your Model": put the
+ever crosses it during a fit step. That is exactly the axis to place on the
+network when a job spans several hosts ("How to Scale Your Model": put the
 axis with the lowest communication volume on the slowest interconnect):
 
-- axis "dp" (DCN, across slices): EOF modes. Each slice fits its local
-  modes' hyperparameters; zero cross-slice traffic inside the step.
-- axes ("i", "j") (ICI, within a slice): the N x N Gram, 2-D P(i, j)
+- axis "dp" (across hosts): EOF modes. Each host group fits its local
+  modes' hyperparameters; zero cross-host traffic inside the step.
+- axes ("i", "j") (within a host, NVLink): the N x N Gram, 2-D P(i, j)
   tiled — Cholesky panel broadcasts, solve corrections, and gradient psums
-  all ride ICI (pcholesky2d.py).
+  all stay on the fast links (pcholesky2d.py).
 
 The whole multi-mode step is ONE ``shard_map`` over the 3-axis mesh; inside,
-each device loops its slice's local modes (``lax.map``, lockstep trip count
-across slices) and runs the per-device bodies of the 2-D distributed engine
+each device loops its group's local modes (``lax.map``, lockstep trip count
+across groups) and runs the per-device bodies of the 2-D distributed engine
 (``dist_cholesky_2d_local`` / ``dist_solve_*_2d_local``) with collectives
 over ("i", "j") only. Gradients use the same rank-(m+1) Hutchinson
 stochastic-trace cotangent as the single-chip headline engine and the
@@ -26,8 +26,8 @@ one (N, 1+m) distributed solve yields alpha and W = K^-1 Z, then
 Kbar = 0.5 [(1/m) W Z^T - alpha alpha^T] is contracted against each
 device's LOCAL Gram-tile jacobian and psummed over ("i", "j").
 
-On single-slice hardware the same code runs with "dp" mapped to ICI devices
-(any 3-axis mesh works); the layout is validated on a virtual (2, 2, 2)
+On one host the same code runs with "dp" mapped to local devices (any
+3-axis mesh works); the layout is validated on a virtual (2, 2, 2)
 CPU mesh in tests/test_hybrid.py and __graft_entry__.dryrun_multichip.
 """
 
@@ -144,8 +144,7 @@ def make_hybrid_nlml_and_grads(mesh: Mesh, kernel: str, b: int = 128,
             a_rows = jax.lax.dynamic_slice(alpha, (i32(mi * nr),), (nr,))
             a_cols = jax.lax.dynamic_slice(alpha, (i32(mj * nc),), (nc,))
             kbar = 0.5 * (
-                inv_m * jnp.matmul(w_rows, z_cols.T, precision="high",
-                                   preferred_element_type=dtype)
+                inv_m * jnp.matmul(w_rows, z_cols.T, preferred_element_type=dtype)
                 - a_rows[:, None] * a_cols[None, :])
 
             # pullback toward p (unvarying over i/j) already psums over the

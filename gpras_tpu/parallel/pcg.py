@@ -1,4 +1,4 @@
-"""Distributed matrix-free exact-GP: row-sharded CG + SLQ over an ICI mesh.
+"""Distributed matrix-free exact-GP: row-sharded CG + SLQ over a device mesh.
 
 The single-chip matrix-free engine (gp/exact_cg.py) caps out at whatever one
 chip can stream; this module shards the MATVEC — the only O(N^2) work in the
@@ -10,15 +10,15 @@ Each device holds its row shard of x and rebuilds its (N/d, N) Gram strip
 tile-by-tile against the (replicated) full x; no element of K is ever stored
 and the ONLY collective in the CG iteration is the psum of the dot products
 (alpha/beta scalars) — V itself stays fully replicated (N x R is tiny).
-Communication per iteration: 2 scalar-psums. This is the TPU-native analog of
-distributed BBMM, and scales N linearly with the mesh (the 16 GB/chip limit
-applies only to O(N * panel) streaming buffers).
+Communication per iteration: 2 scalar-psums. This is the shard_map analog of
+distributed BBMM, and scales N linearly with the mesh (per-device memory
+bounds only the O(N * panel) streaming buffers).
 
 Gradients use the same rank-(m+1) cotangent as the single-chip engine,
 contracted against each device's own Gram strip via a local vjp and one psum.
 Reference capability anchor: the reference has no exact GP and no distribution
 at all (SURVEY.md section 2.2); this is the BASELINE.json configs[4]
-"N >= 100k" axis taken past single-chip HBM.
+"N >= 100k" axis taken past one device's memory.
 """
 
 from __future__ import annotations
@@ -42,7 +42,8 @@ Array = jax.Array
 def _local_kmv(kernel, params, x_local, x_full, v, noise, row_panel, axis):
     """One device's rows of (K + noise I) @ v: this device's (N/d, N) Gram
     strip contracted with the replicated v — exact_cg.kmv_cross streams the
-    tiles (and takes the fused Pallas matvec on TPU/f32), so no element of
+    tiles (and takes the fused Pallas matvec where ops/fused.use_fused
+    holds), so no element of
     the strip is ever resident."""
     from gpras_tpu.gp.exact_cg import kmv_cross
 

@@ -1,6 +1,6 @@
-"""Distributed blocked Cholesky + triangular solves over an ICI mesh.
+"""Distributed blocked Cholesky + triangular solves over a device mesh.
 
-The TPU-native scalability story for exact GPs at N >= 100k (BASELINE.json
+The scalability story for exact GPs at N >= 100k (BASELINE.json
 configs[4]); the reference's only scalability lever is the sparse inducing-point
 approximation (SGPR, gpras/gpr.py:299). No reference counterpart exists — this is
 a greenfield component (SURVEY.md section 2.2).
@@ -17,18 +17,18 @@ Design (right-looking, row-block layout, ``shard_map`` over mesh axis "i"):
   column blocks gives the full (N, b) panel; the trailing update is a single
   full-width masked matmul per device.
 - Static shapes throughout: the trailing region is selected by index masks, not
-  dynamic widths, so each step runs the same (N/d, b) @ (b, N) MXU matmul. This
+  dynamic widths, so each step runs the same (N/d, b) @ (b, N) matmul. This
   costs ~3x the minimal trailing-update FLOPs in exchange for one fused,
   compiler-friendly kernel per step; per-device compute is O(N^3 / d).
 - Communication per factorization: nb * (b*N psum + N*b gather) = O(N^2) words
-  over ICI, fully overlappable with the trailing matmuls by XLA's scheduler.
+  between devices, fully overlappable with the trailing matmuls by XLA's scheduler.
 
 All functions are differentiable (fori_loop with static trip count + collective
 ops with defined transposes), so the distributed NLML can be used directly under
 ``jax.grad`` for multi-chip hyperparameter training.
 
 Why 1-D (row-strip) rather than 2-D block-cyclic: at the mesh sizes this
-framework targets (one ICI slice, <= 64 chips) the trailing update — the only
+framework targets (one host's devices, or a few hosts) the trailing update — the only
 O(N^3) term — is already perfectly parallel under row sharding
 (O(N^3 / (3 d)) per device), and the per-step panel all_gather is O(N b)
 regardless of layout. A 2-D block-cyclic layout only starts to pay when the
@@ -68,14 +68,14 @@ def _dupdate(arr, update, starts):
 
 
 def dist_cholesky_local(k_local: Array, b: int, axis: str = "i",
-                        precision: str = "high") -> Array:
+                        precision: str | None = None) -> Array:
     """Body run per-device under shard_map: k_local is this device's (nr, N)
     row strip of the SPD matrix; returns its strip of the lower factor.
 
-    The trailing update runs at an explicit ``precision`` — the TPU default
-    (1-pass bf16) NaNs blocked factorizations at cond(K) ~1e4 (measured,
-    docs/PERFORMANCE.md); panel TRSMs use XLA triangular_solve, which is
-    backward-stable (measured ~3e-7 residual in f32)."""
+    The trailing update runs at ``precision`` (None: the package policy,
+    f32-equivalent — a 1-pass low-precision product NaNs blocked
+    factorizations at cond(K) ~1e4); panel TRSMs use XLA triangular_solve,
+    which is backward-stable (~3e-7 residual in f32)."""
     nr, n = k_local.shape
     nb = n // b
     me = jax.lax.axis_index(axis)
@@ -139,8 +139,7 @@ def dist_solve_lower_local(l_local: Array, rhs: Array, b: int, axis: str = "i") 
         panel_left = jnp.where(jnp.arange(n)[None, :] < g0, panel, 0.0)
         rhs_panel = _dslice(rhs, (g0, 0), (b, m))
         # (b, m); y rows >= g0 are still zero
-        corr = jnp.matmul(panel_left, y, precision="high",
-                          preferred_element_type=y.dtype)
+        corr = jnp.matmul(panel_left, y, preferred_element_type=y.dtype)
         y_kb = jax.scipy.linalg.solve_triangular(l_kk, rhs_panel - corr, lower=True)
         return _dupdate(y, y_kb, (g0, 0))
 
@@ -173,8 +172,7 @@ def dist_solve_upper_local(l_local: Array, rhs: Array, b: int, axis: str = "i") 
         col_below = jnp.where((gidx >= g0 + b)[:, None], col_local, 0.0)
         x_local = _dslice(x, (r0, 0), (nr, m))
         corr = jax.lax.psum(
-            jnp.matmul(col_below.T, x_local, precision="high",
-                       preferred_element_type=x.dtype), axis)  # (b, m)
+            jnp.matmul(col_below.T, x_local, preferred_element_type=x.dtype), axis)  # (b, m)
         rhs_panel = _dslice(rhs, (g0, 0), (b, m))
         x_kb = jax.scipy.linalg.solve_triangular(
             l_kk, rhs_panel - corr, lower=True, trans=1)

@@ -1,7 +1,7 @@
-"""Distributed Cholesky + triangular solves with K sharded 2-D over an ICI mesh.
+"""Distributed Cholesky + triangular solves with K sharded 2-D over a mesh.
 
 The fully 2-D layout of BASELINE.json configs[4] ("the Gram matrix shards 2-D
-over ICI"): device (a, b) of a (di, dj) mesh owns the contiguous
+over the interconnect"): device (a, b) of a (di, dj) mesh owns the contiguous
 (N/di, N/dj) tile K[a*nr:(a+1)*nr, b*nc:(b+1)*nc], exactly the layout
 ``pgram.pgram_2d`` produces communication-free. No reference counterpart
 exists (greenfield, SURVEY.md section 2.2); the 1-D row-strip engine lives in
@@ -18,7 +18,7 @@ Right-looking blocked algorithm, one step per b-wide global panel:
 4. one ``all_gather`` along "i" assembles the full (N, b) panel; each device
    takes the contiguous (nc, b) slice matching its global *columns* and
    applies the masked full-width trailing update
-   ``tile -= panel_rows @ panel_cols^T`` — a single static-shape MXU matmul.
+   ``tile -= panel_rows @ panel_cols^T`` — a single static-shape matmul.
 
 Per-step communication: the "j" broadcast moves (N/di)*b words, the "i"
 gather N*b — vs the 1-D engine's b*N broadcast + N*b gather. The trailing
@@ -65,7 +65,7 @@ def _bcast(value: Array, is_owner: Array, axes) -> Array:
 
 def dist_cholesky_2d_local(k_local: Array, b: int,
                            axes: tuple[str, str] = ("i", "j"),
-                           precision: str = "high") -> Array:
+                           precision: str | None = None) -> Array:
     """Per-device body: ``k_local`` is this device's (nr, nc) contiguous tile
     of the SPD matrix; returns its tile of the lower factor (upper zeroed)."""
     ai, aj = axes
@@ -141,8 +141,7 @@ def dist_solve_lower_2d_local(l_local: Array, rhs: Array, b: int,
         row_strip = _dslice(l_local, (loc_r, 0), (b, nc))  # L[g0:g0+b, my cols]
         row_left = jnp.where(gidx_c[None, :] < g0, row_strip, 0.0)
         y_cols = _dslice(y, (mj * nc, 0), (nc, m))
-        partial = jnp.matmul(row_left, y_cols, precision="high",
-                             preferred_element_type=y.dtype)
+        partial = jnp.matmul(row_left, y_cols, preferred_element_type=y.dtype)
         corr = _bcast(partial, mi == owner_i, (ai, aj))  # (b, m), summed over j
         l_kk = _bcast(_dslice(l_local, (loc_r, loc_c), (b, b)),
                       (mi == owner_i) & (mj == owner_j), (ai, aj))
@@ -175,8 +174,7 @@ def dist_solve_upper_2d_local(l_local: Array, rhs: Array, b: int,
         col_strip = _dslice(l_local, (0, loc_c), (nr, b))  # L[my rows, g0:g0+b]
         col_below = jnp.where((gidx_r >= g0 + b)[:, None], col_strip, 0.0)
         x_rows = _dslice(x, (mi * nr, 0), (nr, m))
-        partial = jnp.matmul(col_below.T, x_rows, precision="high",
-                             preferred_element_type=x.dtype)
+        partial = jnp.matmul(col_below.T, x_rows, preferred_element_type=x.dtype)
         corr = _bcast(partial, mj == owner_j, (ai, aj))  # (b, m), summed over i
         l_kk = _bcast(_dslice(l_local, (loc_r, loc_c), (b, b)),
                       (mi == owner_i) & (mj == owner_j), (ai, aj))

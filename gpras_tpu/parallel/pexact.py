@@ -1,4 +1,4 @@
-"""Distributed exact-GP NLML over an ICI mesh, with a factor-reusing custom VJP.
+"""Distributed exact-GP NLML over a device mesh, with a factor-reusing custom VJP.
 
 Composes the communication-free row-sharded Gram (``pgram_rows``), the
 distributed blocked Cholesky, and distributed triangular solves into the exact
@@ -46,10 +46,9 @@ Array = jax.Array
 
 def resolve_layout(mesh: Mesh, layout: str = "auto") -> str:
     """``"auto"`` -> ``"2d"`` on a true 2-D mesh (axes "i" AND "j", both
-    > 1 device), else ``"1d"``. The 2-D P(i, j) engine is measured faster
-    (1.53x at N=8k on 8 devices, docs/PERFORMANCE.md) and its panel
-    broadcasts scale with the mesh's 2-D shape, so it is the default
-    whenever the mesh shape allows it."""
+    > 1 device), else ``"1d"``. The 2-D P(i, j) engine's panel broadcasts
+    scale with the mesh's 2-D shape, so it is the default whenever the mesh
+    shape allows it."""
     if layout != "auto":
         return layout
     shape = dict(mesh.shape)
@@ -286,8 +285,7 @@ def make_dist_nlml_stochastic(mesh: Mesh, kernel: str, b: int = 128,
             cols = j * c + jnp.arange(c)
             # rank-(m+1) cotangent: no solve — two skinny matmuls
             kbar_cols = 0.5 * g * (
-                inv_m * jnp.matmul(w, z[cols].T, precision="high",
-                                   preferred_element_type=x.dtype)
+                inv_m * jnp.matmul(w, z[cols].T, preferred_element_type=x.dtype)
                 - alpha[:, None] * alpha[cols][None, :])
             diag_acc = diag_acc + jnp.sum(kbar_cols[cols, jnp.arange(c)])
             grads_b = contract(params, x, x[cols], kbar_cols)

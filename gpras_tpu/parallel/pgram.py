@@ -4,7 +4,7 @@ Two layouts:
 - ``pgram_rows``: K sharded by row blocks over a 1-D mesh ("i") — the layout the
   distributed Cholesky consumes. Zero communication: each device evaluates
   k(x_rows, x) for its row strip (x itself is small, (N, D), and replicated).
-- ``pgram_2d``: K sharded (i, j) over a 2-D mesh — the fully 2-D ICI-sharded
+- ``pgram_2d``: K sharded (i, j) over a 2-D mesh — the fully 2-D sharded
   Gram of BASELINE.json configs[4]; each device computes its (N/di, N/dj) tile
   from its row and column slices of x.
 

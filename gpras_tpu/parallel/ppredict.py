@@ -1,7 +1,7 @@
-"""Event-sharded batched posterior prediction over an ICI mesh.
+"""Event-sharded batched posterior prediction over a device mesh.
 
 The serving surface (gp/serving.py) batches thousands of storm-event
-timesteps through the cached-factor posterior on one chip; this module
+timesteps through the cached-factor posterior on one device; this module
 shards the QUERY axis across the mesh — each device evaluates the full
 multi-mode posterior for its slice of events against replicated factors.
 Zero collectives (the computation is embarrassingly event-parallel), so

@@ -4,11 +4,11 @@ The SVGP bound (gp/svgp.py) decomposes over data points, so scaling the
 minibatch across chips is pure data parallelism: shard the global batch over
 a mesh axis, replicate the O(M^2) params, and let the SPMD partitioner insert
 the one ``psum`` behind the batch-reduction — no hand-written collectives
-(the scaling-book recipe: annotate shardings, let XLA place the collectives
-on ICI). Each step's communication is just the gradient reduction of the
+(the scaling-book recipe: annotate shardings, let XLA place the
+collectives). Each step's communication is just the gradient reduction of the
 O(M^2 + M D) parameter pytree, so the efficiency floor is set by
-``global_batch / n_devices`` keeping the per-chip (M, B_local) matmuls
-MXU-shaped.
+``global_batch / n_devices`` keeping the per-device (M, B_local) matmuls
+large.
 
 This is the multi-chip answer for datasets too large even for the
 matrix-free CG engine's single-chip ceiling: SVGP never materializes

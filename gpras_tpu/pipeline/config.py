@@ -4,7 +4,7 @@ Parity with the reference's ``Config`` dataclass (production/analysis/
 data_models.py:38-368): per-field ``metadata={"help", "example", "choices"}``
 self-documentation, derived paths created in ``__post_init__``, lazy cached
 accessors for heavyweight objects, and factory properties dispatching on
-``lf_model_type``. Adds TPU-specific knobs: ``model_backend`` (sparse vs exact
+``lf_model_type``. Adds device-backend knobs: ``model_backend`` (sparse vs exact
 GP) and ``dtype``.
 
 The reference's ``lf_model_type`` Literal omits "ras_interpolate" even though its
@@ -141,7 +141,7 @@ class Config:
     cell_id_field: str = field(default="cell_id", metadata={
         "help": "Cell-id field name in the mesh tables.", "example": "cell_id"})
 
-    # === TPU backend knobs (new) ===
+    # === device backend knobs (new) ===
     model_backend: str = field(default="sgpr", metadata={
         "help": "GP backend: sparse collapsed-ELBO ('sgpr'), minibatch "
                 "uncollapsed-bound sparse GP ('svgp'; unbounded N at O(M^2) "
@@ -156,7 +156,7 @@ class Config:
                 "hydraulic parameter; the reference's fi used 0).",
         "example": 0.1})
     dtype: str = field(default="float32", metadata={
-        "help": "Device compute dtype. float32 is the TPU-native default "
+        "help": "Device compute dtype. float32 is the accelerator default "
                 "(the reference runs float64 on CPU).",
         "choices": ["float32", "float64"], "example": "float32"})
 

@@ -3,7 +3,7 @@
 The reference's only observability is five perf_counter timestamps dumped to
 ``timers.json`` (production/analysis/pipeline.py:216-294) and bare prints. This
 module keeps that phase-timer surface (same JSON keys, SURVEY.md section 5.1)
-and adds the TPU-native layer: ``jax.profiler`` trace capture around any phase
+and adds the device layer: ``jax.profiler`` trace capture around any phase
 (viewable in TensorBoard/XProf), and a loss-history recorder that turns the
 optimizer's nan-padded ``losses`` array into step logs.
 """

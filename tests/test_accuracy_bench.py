@@ -32,14 +32,14 @@ def test_paths_agree_and_calibrate():
     f64 = accuracy.run_path("f64", TINY)
     s = accuracy.summarize(f32, f64)
     assert set(s) == {
-        "depth_rmse_f32_tpu", "depth_rmse_f64_gold", "depth_rmse_vs_f64",
+        "depth_rmse_f32", "depth_rmse_f64_gold", "depth_rmse_vs_f64",
         "depth_rmse_ratio_f32_over_f64", "coverage_2sigma_f32",
         "coverage_2sigma_f64",
     }
     # both surrogates actually learned the map: RMSE well under the field's
     # own scale
     scale = float(np.std(f32["truth"]))
-    assert s["depth_rmse_f32_tpu"] < 0.5 * scale
+    assert s["depth_rmse_f32"] < 0.5 * scale
     assert s["depth_rmse_f64_gold"] < 0.5 * scale
     # numerics gap between the two paths is small relative to the
     # irreducible error itself (SGPR-m16-f32 vs dense-f64 on 6 modes)

@@ -3,7 +3,7 @@
 The bench is the driver's artifact, so its protocol logic — the stopping
 band, the warm-start transfer clamp, and the certify-then-polish flow —
 is guarded here on tiny CPU problems (the numbers themselves are measured
-on the TPU; these tests pin the FLOW)."""
+on the GPU; these tests pin the FLOW)."""
 
 import os
 import sys
@@ -93,8 +93,8 @@ def test_lbfgs_rung_and_polish_lr_knobs(tiny_env):
 
 
 def test_round5_warm_defaults_and_instrumentation(tiny_env):
-    """The round-5 hard-DGP warm defaults (adam rung lr 0.05 capped at 500
-    iterations — the swept winner, docs/PERFORMANCE.md round-5 sweep) are
+    """The hard-DGP warm defaults (adam rung lr 0.05 capped at 500
+    iterations — the benchmarks/headline_sweep.py winner) are
     observable through the instrumentation fields, and the rung honors the
     iteration cap."""
     tiny_env.setenv("GPRAS_BENCH_WARM_ITERS", "7")

@@ -108,8 +108,8 @@ def test_tri_inverse_matches_inv():
 def test_blocked_engines_survive_high_condition_f32():
     """cond(K) ~ 3e5 in float32: XLA's cholesky survives this easily; the
     blocked engines must too (they NaN'd at cond ~1e4 before the
-    controlled-precision panel solves — measured on TPU, exercised here in
-    f32 on CPU)."""
+    controlled-precision panel solves with a 1-pass low-precision product;
+    exercised here in f32 on CPU)."""
     from gpras_tpu.ops.block_cholesky import super_cholesky
 
     rng = np.random.default_rng(0)

@@ -75,8 +75,8 @@ def test_fit_exact_host_linesearch_path():
 def test_fit_exact_stop_decrease_truncates_identically():
     """The noise-plateau stop (stop_decrease) ends the CG host-linesearch
     fit earlier with a trajectory identical to the unstopped run — the
-    measured-protocol property (docs/PERFORMANCE.md, 131k: 451.7 -> 314.6 s
-    at the same terminus)."""
+    protocol property the fit relies on at large N (same terminus,
+    fewer evaluations)."""
     x, y = make_problem(n=256)
     kw = dict(engine="cg", host_linesearch=True, max_iter=10, probes=16,
               cg_iters=16, seg_iters=4)

@@ -174,7 +174,7 @@ def test_transform_points_feet_to_shg_and_back():
 
 
 def test_builder_rasterized_aoi_reprojects(tmp_path):
-    """End-to-end (VERDICT round-1 item 5): model + AOI in geographic
+    """End-to-end: model + AOI in geographic
     coordinates, precip raster in SHG Albers — the mask must match the one
     computed from the manually projected AOI (reference gpras/preprocess.py:
     236-251 via geopandas to_crs + rasterio rasterize)."""

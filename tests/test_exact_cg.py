@@ -3,9 +3,10 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from gpras_tpu.gp import exact
-from gpras_tpu.gp.exact_cg import kmv, make_cg_nlml, mbcg
+from gpras_tpu.gp.exact_cg import kmv, kmv_cross, make_cg_nlml, mbcg
 from gpras_tpu.ops import kernels as K
 from gpras_tpu.ops import linalg
 
@@ -25,6 +26,70 @@ def test_kmv_matches_dense():
     got = np.asarray(kmv("Matern52", params, x, v, noise, row_panel=32))
     kd = np.asarray(K.gram("Matern52", params, x)) + float(noise) * np.eye(96)
     np.testing.assert_allclose(got, kd @ np.asarray(v), rtol=1e-10)
+
+
+@pytest.mark.parametrize("kernel", K.STATIONARY_KERNELS)
+@pytest.mark.parametrize("cross", [False, True])
+def test_plain_kmv_matches_dense_product(kernel, cross):
+    """The panel-loop matvec (the CPU path, and wide right-hand sides on
+    a GPU) against the float64 dense product, at 100 rows: no panel of 32
+    divides that, so the panel shrinks to 25. In float64 because the
+    r-singular kernels (Matern12, Exponential) turn last-bit differences in
+    a coincident pair's squared distance into sqrt-sized ones."""
+    rng = np.random.default_rng(6)
+    x1 = jnp.asarray(rng.normal(size=(100, 4)))
+    x2 = jnp.asarray(rng.normal(size=(37, 4))) if cross else x1
+    v = jnp.asarray(rng.normal(size=(x2.shape[0], 3)))
+    params = exact.init_params(kernel, x1, noise_variance=0.2)
+    if cross:
+        got = kmv_cross(kernel, params, x1, x2, v, row_panel=32)
+        noise = 0.0
+    else:
+        noise = float(jnp.exp(params["log_noise_variance"]))
+        got = kmv(kernel, params, x1, v, noise, row_panel=32)
+    kd = np.asarray(K.gram(kernel, params, x1, x2)) \
+        + noise * np.eye(100, x2.shape[0])
+    want = kd @ np.asarray(v)
+    np.testing.assert_allclose(np.asarray(got), want,
+                               atol=1e-7 * np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("kernel", ["RBF", "Matern12", "Matern52"])
+def test_plain_cotangent_grads_match_autodiff(kernel):
+    """The Gram-vjp panel loop with the noise/jitter diagonal term == the
+    autodiff vjp of the noisy Gram against the same rank-(m+1) cotangent,
+    at 90 rows (a column panel of 32 shrinks to 30)."""
+    from gpras_tpu.gp.exact_cg import _cotangent_grads
+
+    rng = np.random.default_rng(8)
+    n, m, g = 90, 4, 1.3
+    x = jnp.asarray(rng.normal(size=(n, 3)))
+    params = exact.init_params(kernel, x, noise_variance=0.1)
+    w, v = (jnp.asarray(rng.normal(size=(n, m))) for _ in range(2))
+    alpha = jnp.asarray(rng.normal(size=n))
+    got = _cotangent_grads(kernel, params, x, alpha, w, v, g, 1.0 / m, 32)
+
+    def noisy_gram(p):
+        diag = jnp.exp(p["log_noise_variance"]) + linalg.default_jitter(
+            x.dtype) * jnp.exp(p["log_variance"])
+        return K.gram(kernel, p, x) + diag * jnp.eye(n)
+
+    kbar = 0.5 * g * (w @ v.T / m - jnp.outer(alpha, alpha))
+    _, pullback = jax.vjp(noisy_gram, params)
+    (want,) = pullback(kbar)
+    for k in want:
+        # float64 both; the r-singular kernels' floor at r = 0 is met by
+        # the panel and whole-Gram distance expansions a rounding apart
+        np.testing.assert_allclose(np.asarray(got[k]), np.asarray(want[k]),
+                                   rtol=1e-6, atol=1e-10)
+
+
+@pytest.mark.parametrize("n,target,want", [
+    (4096, 512, 512), (100, 32, 25), (97, 32, 1), (10, 512, 10)])
+def test_fit_panel_is_largest_divisor(n, target, want):
+    from gpras_tpu.gp.exact_cg import _fit_panel
+
+    assert _fit_panel(n, target) == want
 
 
 def test_mbcg_solves():
@@ -178,8 +243,8 @@ def test_cg_predict_preconditioned_matches_dense_at_small_noise():
 
 
 def test_chunked_step_matches_monolithic():
-    """make_cg_step_chunked (host-segmented dispatch for giant N: the TPU
-    worker's per-program execution budget) must match the monolithic jitted
+    """make_cg_step_chunked (host-segmented dispatch for giant N: short
+    programs with host early exits) must match the monolithic jitted
     value_and_grad exactly — the segment runner is the same mbcg state
     machine, so only jit-boundary fusion noise is allowed."""
     from gpras_tpu.gp.exact_cg import (make_cg_step_chunked,

@@ -98,174 +98,171 @@ def test_gram_gradients_finite_at_coincident_points():
             assert np.all(np.isfinite(np.asarray(leaf))), kernel
 
 
-def test_pallas_kmv_interpret_matches_dense():
-    """Fused Gram@V pallas kernel (interpret mode on CPU): square with fused
-    noise diagonal, rectangular cross, and ragged shapes incl. R padding."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from gpras_tpu.ops import kernels as K
-    from gpras_tpu.ops.pallas_gram import pallas_kmv
-
-    rng = np.random.default_rng(7)
+def _fused_case(seed, n1, n2, d, r):
+    rng = np.random.default_rng(seed)
     params = {"log_variance": jnp.asarray(0.3, jnp.float32),
-              "log_lengthscales": jnp.asarray(np.log(rng.uniform(0.5, 2.0, 3)),
-                                              jnp.float32)}
-    x1 = jnp.asarray(rng.normal(size=(300, 3)), jnp.float32)
-    v1 = jnp.asarray(rng.normal(size=(300, 5)), jnp.float32)
-    kd = np.asarray(K.gram("Matern52", params, x1)) + 0.25 * np.eye(300)
-    got = np.asarray(pallas_kmv("Matern52", params, x1, v1,
-                                noise=jnp.float32(0.25), interpret=True))
-    np.testing.assert_allclose(got, kd @ np.asarray(v1), rtol=2e-4, atol=2e-4)
-
-    x2 = jnp.asarray(rng.normal(size=(140, 3)), jnp.float32)
-    v2 = jnp.asarray(rng.normal(size=(140, 2)), jnp.float32)
-    kx = np.asarray(K.gram("RBF", params, x1, x2))
-    got2 = np.asarray(pallas_kmv("RBF", params, x1, v2, x2=x2, interpret=True))
-    np.testing.assert_allclose(got2, kx @ np.asarray(v2), rtol=2e-4, atol=2e-4)
+              "log_lengthscales": jnp.asarray(
+                  np.log(rng.uniform(0.5, 2.0, d)), jnp.float32)}
+    x1 = jnp.asarray(rng.normal(size=(n1, d)), jnp.float32)
+    x2 = None if n2 is None else jnp.asarray(rng.normal(size=(n2, d)),
+                                             jnp.float32)
+    v = jnp.asarray(rng.normal(size=(n1 if n2 is None else n2, r)),
+                    jnp.float32)
+    return params, x1, x2, v
 
 
-def test_pallas_kgrad_matches_f64_autodiff_contraction():
-    """Fused gradient contraction (pallas_kgrad, interpret mode) == FLOAT64
-    autodiff vjp of the dense Gram contracted with the same rank-(m+1)
-    cotangent, for every stationary kernel, including grid accumulation and
-    row padding.
+def _f64(tree):
+    return {k: jnp.asarray(np.asarray(v), jnp.float64) for k, v in tree.items()}
 
-    The reference is f64 deliberately: for the r-singular kernels
-    (Matern12/Exponential) the F32 autodiff path itself is ~5% off the f64
-    truth (its matmul-based r2 has absolute error ~1e-6, which corrupts
-    exp(-r) near r=0), while the fused kernel tracks f64 to ~0.3%
-    (HIGHEST-precision distance matmul; measured in round 3)."""
+
+@pytest.mark.parametrize("kernel", K.STATIONARY_KERNELS)
+@pytest.mark.parametrize("square", [True, False])
+def test_fused_kmv_interpret_matches_f64(kernel, square):
+    """The fused matvec (ops/fused.kmv, interpret mode) == the float64 dense
+    K(x1, x2) @ v, square and rectangular, with every dimension padded
+    (rows to the blocks, D and R to powers of two >= 16)."""
+    from gpras_tpu.ops import fused
+
+    params, x1, x2, v = _fused_case(7, 300, None if square else 77, 5, 3)
+    got = np.asarray(fused.kmv(kernel, params, x1, v, x2, interpret=True))
+    kd = np.asarray(K.gram(kernel, _f64(params),
+                           jnp.asarray(np.asarray(x1), jnp.float64),
+                           None if square else
+                           jnp.asarray(np.asarray(x2), jnp.float64)))
+    want = kd @ np.asarray(v, np.float64)
+    np.testing.assert_allclose(got, want, atol=2e-5 * np.max(np.abs(want)),
+                               rtol=2e-4)
+
+
+@pytest.mark.parametrize("n1,r,block_m,block_n", [
+    (1, 1, 16, 16),       # one row, one column of V
+    (129, 16, 32, 16),    # one row past a block, R already a power of two
+    (64, 33, 64, 32),     # rows exactly one block, R just past one
+    (40, 130, 16, 16),    # R past one 128-column chunk: a 2-D grid
+])
+def test_fused_kmv_padding_and_blocks(n1, r, block_m, block_n):
+    """Block sizes and paddings never change the product: padded V rows are
+    zero and padded output rows are cropped."""
+    from gpras_tpu.ops import fused
+
+    params, x1, x2, v = _fused_case(11, n1, 50, 3, r)
+    got = np.asarray(fused.kmv("Matern32", params, x1, v, x2, interpret=True,
+                               block_m=block_m, block_n=block_n))
+    want = np.asarray(K.gram("Matern32", params, x1, x2)) @ np.asarray(v)
+    assert got.shape == (n1, r)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_fused_kmv_under_vmap():
+    """The matrix-free predict vmaps the matvec over EOF modes."""
     import jax
 
-    from gpras_tpu.ops.pallas_gram import pallas_kgrad
+    from gpras_tpu.ops import fused
+
+    params, x1, _, v = _fused_case(3, 96, None, 4, 2)
+    batched = jax.tree.map(lambda a: jnp.stack([a, a + 0.2]), params)
+    got = np.asarray(jax.vmap(
+        lambda p: fused.kmv("RBF", p, x1, v, interpret=True))(batched))
+    for i in range(2):
+        p_i = jax.tree.map(lambda a: a[i], batched)
+        want = np.asarray(K.gram("RBF", p_i, x1)) @ np.asarray(v)
+        np.testing.assert_allclose(got[i], want, rtol=1e-4, atol=1e-5)
+
+
+def test_fused_kmv_under_shard_map():
+    """Sharded prediction runs the fused matvec inside ``shard_map`` with
+    its default ``check_vma=True``; each device's block of the result
+    matches the kernel run on that device's rows alone."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from gpras_tpu.ops import fused
+    from gpras_tpu.parallel import make_mesh
+
+    params, x1, x2, v = _fused_case(13, 64, 40, 3, 2)
+    run = lambda xq: fused.kmv("Matern52", params, xq, v, x2, interpret=True)
+    got = jax.shard_map(run, mesh=make_mesh((4,), ("i",)), in_specs=P("i"),
+                        out_specs=P("i"))(x1)
+    for i in range(4):
+        rows = slice(16 * i, 16 * (i + 1))
+        np.testing.assert_allclose(np.asarray(got[rows]),
+                                   np.asarray(run(x1[rows])), rtol=1e-6)
+
+
+@pytest.mark.parametrize("kernel", K.STATIONARY_KERNELS)
+@pytest.mark.parametrize("n", [64, 200])   # one block; padded multi-block
+def test_fused_kgrad_matches_f64_autodiff(kernel, n):
+    """Fused gradient contraction (ops/fused.kgrad, interpret mode) == the
+    FLOAT64 autodiff vjp of the dense Gram contracted with the same
+    rank-(m+1) cotangent, for every stationary kernel.
+
+    The reference is f64 deliberately: for the r-singular kernels
+    (Matern12/Exponential) the f32 autodiff path itself is visibly off the
+    f64 truth near r = 0, while the fused kernel's exact-f32 distance
+    keeps it close."""
+    import jax
+
+    from gpras_tpu.ops import fused
 
     rng = np.random.default_rng(5)
-    for kernel in ("RBF", "Matern12", "Matern32", "Matern52", "Exponential"):
-        for n in (512, 640):  # one tile; padded multi-tile grid
-            d, m = 5, 8
-            x = jnp.asarray(rng.normal(size=(n, d)), jnp.float32)
-            w = jnp.asarray(rng.normal(size=(n, m)), jnp.float32)
-            z = jnp.asarray(rng.choice([-1.0, 1.0], size=(n, m)), jnp.float32)
-            alpha = jnp.asarray(rng.normal(size=n), jnp.float32)
-            params = {
-                "log_variance": jnp.asarray(0.3, jnp.float32),
-                "log_lengthscales": jnp.asarray(
-                    rng.normal(size=d) * 0.2, jnp.float32),
-            }
-            g, inv_m = 1.7, 1.0 / m
-            kbar64 = 0.5 * g * (
-                inv_m * (np.asarray(w, np.float64) @ np.asarray(z, np.float64).T)
-                - np.asarray(alpha, np.float64)[:, None]
-                * np.asarray(alpha, np.float64)[None, :])
-            params64 = {k: jnp.asarray(np.asarray(v), jnp.float64)
-                        for k, v in params.items()}
-            x64 = jnp.asarray(np.asarray(x), jnp.float64)
-
-            def gram_f64(p):
-                return K.gram(kernel, p, x64)
-
-            _, pullback = jax.vjp(gram_f64, params64)
-            (want,) = pullback(jnp.asarray(kbar64))
-            got = pallas_kgrad(kernel, params, x, w, z, alpha,
-                               g=g, inv_m=inv_m, interpret=True, tile=512)
-            np.testing.assert_allclose(
-                float(got["log_variance"]),
-                float(want["log_variance"]), rtol=5e-3,
-                err_msg=f"{kernel} n={n} log_variance")
-            gl = np.asarray(got["log_lengthscales"], np.float64)
-            wl = np.asarray(want["log_lengthscales"], np.float64)
-            scale = max(np.max(np.abs(wl)), 1e-3)
-            np.testing.assert_allclose(gl, wl, atol=8e-3 * scale, rtol=5e-3,
-                                       err_msg=f"{kernel} n={n} lengthscales")
-
-
-def test_pallas_kmv_tile_not_multiple_of_subchunk():
-    """_kmv_body sub-chunks each covariance tile in 256-column pieces; a
-    tile_n that is NOT a multiple of 256 must still contract every column
-    (the trailing partial chunk gets its own static width)."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from gpras_tpu.ops import kernels as K
-    from gpras_tpu.ops.pallas_gram import pallas_kmv
-
-    rng = np.random.default_rng(11)
-    params = {"log_variance": jnp.asarray(0.1, jnp.float32),
-              "log_lengthscales": jnp.asarray(np.log(rng.uniform(0.5, 2.0, 2)),
-                                              jnp.float32)}
-    x1 = jnp.asarray(rng.normal(size=(500, 2)), jnp.float32)
-    v1 = jnp.asarray(rng.normal(size=(500, 3)), jnp.float32)
-    kd = np.asarray(K.gram("Matern32", params, x1)) + 0.5 * np.eye(500)
-    got = np.asarray(pallas_kmv("Matern32", params, x1, v1,
-                                noise=jnp.float32(0.5), interpret=True,
-                                tile_m=384, tile_n=384))
-    np.testing.assert_allclose(got, kd @ np.asarray(v1), rtol=2e-4, atol=2e-4)
-
-
-def test_pallas_kmv_symmetric_matches_dense_reference():
-    """The symmetric fused matvec (upper-triangle tiles contracted twice,
-    ops/pallas_gram._kmv_sym_body) must match the dense f64-gold K @ v for
-    every stationary kernel, including a padded remainder tile and r not a
-    lane multiple. Interpret mode exercises the sequential per-block-row
-    launcher — the same body the compiled aliased grid runs (the compiled
-    path is checked against the dense kernel on TPU; see docs)."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from gpras_tpu.ops import kernels as K
-    from gpras_tpu.ops.pallas_gram import pallas_kmv
-
-    rng = np.random.default_rng(7)
-    d = 5
-    for kernel, n, r in [("RBF", 2048, 3), ("Matern52", 2100, 3),
-                         ("Matern12", 2048, 130), ("Matern32", 2500, 7),
-                         ("Exponential", 2048, 3)]:
-        params = {
-            "log_variance": jnp.asarray(0.2, jnp.float32),
-            "log_lengthscales": jnp.asarray(
-                np.log(rng.uniform(0.5, 2.0, d)), jnp.float32)}
-        x = jnp.asarray(rng.normal(size=(n, d)), jnp.float32)
-        v = jnp.asarray(rng.normal(size=(n, r)), jnp.float32)
-        kd = np.asarray(K.gram(kernel, params, x), np.float64) \
-            + 0.3 * np.eye(n)
-        want = kd @ np.asarray(v, np.float64)
-        got = np.asarray(pallas_kmv(kernel, params, x, v,
-                                    noise=jnp.float32(0.3), interpret=True,
-                                    tile_m=256, tile_n=256, sym=True))
-        scale = np.max(np.abs(want))
-        np.testing.assert_allclose(got, want, atol=2e-5 * scale, rtol=2e-4,
-                                   err_msg=f"{kernel} n={n} r={r}")
-
-
-def test_pallas_kgrad_symmetric_matches_dense_body():
-    """The symmetric gradient contraction (folded cotangent
-    Kbar_ij + Kbar_ji^T, ops/pallas_gram._kgrad_sym_body) must agree with
-    the full-grid body on the same inputs."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from gpras_tpu.ops.pallas_gram import pallas_kgrad
-
-    rng = np.random.default_rng(3)
-    n, d, m = 1100, 4, 8
+    d, m = 5, 8
     x = jnp.asarray(rng.normal(size=(n, d)), jnp.float32)
     w = jnp.asarray(rng.normal(size=(n, m)), jnp.float32)
-    z = jnp.asarray(rng.normal(size=(n, m)), jnp.float32)
-    al = jnp.asarray(rng.normal(size=n), jnp.float32)
-    for kernel in ("RBF", "Matern52", "Matern12"):
-        params = {
-            "log_variance": jnp.asarray(0.1, jnp.float32),
-            "log_lengthscales": jnp.asarray(
-                np.log(rng.uniform(0.5, 2.0, d)), jnp.float32)}
-        kw = dict(interpret=True, tile=128)
-        gd = pallas_kgrad(kernel, params, x, w, z, al, 0.7, 1.0 / m,
-                          sym=False, **kw)
-        gs = pallas_kgrad(kernel, params, x, w, z, al, 0.7, 1.0 / m,
-                          sym=True, **kw)
-        for k in gd:
-            a = np.asarray(gd[k], np.float64)
-            b = np.asarray(gs[k], np.float64)
-            scale = max(np.max(np.abs(a)), 1e-9)
-            np.testing.assert_allclose(b, a, atol=3e-5 * scale, rtol=3e-5,
-                                       err_msg=f"{kernel} {k}")
+    z = jnp.asarray(rng.choice([-1.0, 1.0], size=(n, m)), jnp.float32)
+    alpha = jnp.asarray(rng.normal(size=n), jnp.float32)
+    params = {"log_variance": jnp.asarray(0.3, jnp.float32),
+              "log_lengthscales": jnp.asarray(rng.normal(size=d) * 0.2,
+                                              jnp.float32)}
+    g, inv_m = 1.7, 1.0 / m
+    w64, z64, a64 = (np.asarray(a, np.float64) for a in (w, z, alpha))
+    kbar64 = 0.5 * g * (inv_m * (w64 @ z64.T) - np.outer(a64, a64))
+    x64 = jnp.asarray(np.asarray(x), jnp.float64)
+    _, pullback = jax.vjp(lambda p: K.gram(kernel, p, x64), _f64(params))
+    (want,) = pullback(jnp.asarray(kbar64))
+    got = fused.kgrad(kernel, params, x, w, z, alpha, g=g, inv_m=inv_m,
+                      interpret=True, block_m=32, block_n=32)
+    # both gradients are sums of n^2 f32 terms that largely cancel
+    np.testing.assert_allclose(float(got["log_variance"]),
+                               float(want["log_variance"]), rtol=2e-3)
+    gl = np.asarray(got["log_lengthscales"], np.float64)
+    wl = np.asarray(want["log_lengthscales"], np.float64)
+    np.testing.assert_allclose(gl, wl, atol=2e-3 * np.max(np.abs(wl)),
+                               rtol=2e-3)
+
+
+class _FakeDevice:
+    def __init__(self, platform, cc=None):
+        self.platform = platform
+        if cc is not None:
+            self.compute_capability = cc
+
+
+@pytest.mark.parametrize("platform,cc,kernel,dtype,want", [
+    ("cpu", None, "Matern52", jnp.float32, False),    # CPU: plain path only
+    ("gpu", "9.0", "Matern52", jnp.float32, True),    # Hopper
+    ("gpu", "8.0", "RBF", jnp.float32, True),         # Ampere (TF32)
+    ("gpu", "7.0", "Matern52", jnp.float32, False),   # no TF32 tensor cores
+    ("gpu", "9.0", "Matern52", jnp.float64, False),   # f32 kernels only
+    ("gpu", "9.0", "Periodic", jnp.float32, False),   # stationary only
+])
+def test_use_fused_dispatch(monkeypatch, platform, cc, kernel, dtype, want):
+    import jax
+
+    from gpras_tpu.ops import fused
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [_FakeDevice(platform, cc)])
+    assert fused.use_fused(kernel, dtype) is want
+    assert fused.use_fused(kernel, dtype, fused.FUSED_MAX_RHS) is want
+    # wider right-hand sides go to XLA's panel loop, which shares one tile
+    assert fused.use_fused(kernel, dtype, fused.FUSED_MAX_RHS + 1) is False
+    with fused.plain_xla():
+        assert fused.use_fused(kernel, dtype) is False
+
+
+@pytest.mark.gpu
+def test_fused_kernels_compiled_on_gpu(gpu_device):
+    """The compiled kernels against the plain XLA path on the card (the
+    same check chip_smoke.py's kernels phase makes at full width)."""
+    import chip_smoke
+
+    chip_smoke.phase_kernels(n_kmv=8192, r=17, n_kgrad=4096)

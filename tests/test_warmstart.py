@@ -1,4 +1,4 @@
-"""Warm-start transfer protocol (gp/warmstart.py; VERDICT r4 item 4).
+"""Warm-start transfer protocol (gp/warmstart.py).
 
 The bench's measured 49k warm-start robustness — conditioning-envelope
 clamp + certify-then-polish — must be reachable through the public
